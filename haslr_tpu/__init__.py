@@ -1,14 +1,14 @@
-"""haslr_tpu — a TPU-native hybrid de novo genome assembler.
+"""haslr_tpu — a JAX hybrid de novo genome assembler for the GPU.
 
 A from-scratch reimplementation of the capabilities of HASLR (vpc-ccg/haslr):
 hybrid assembly of long reads (PacBio/Nanopore) + short reads (Illumina),
-redesigned TPU-first:
+redesigned around batched device kernels:
 
 - ``core/``     sequence primitives (2-bit DNA codec, CIGAR algebra, interval
                 algorithms), FASTA/PAF/GFA I/O.
-- ``kernels/``  Pallas TPU kernels: k-mer counting, minimizer extraction,
-                seed chaining, banded alignment DP, and the batched
-                POA-consensus engine.
+- ``kernels/``  device kernels: k-mer counting, the banded alignment DP
+                (XLA and a CUDA kernel), and the batched consensus
+                engine.
 - ``sr/``       short-read side: k-mer counting + de Bruijn contigs
                 (replaces minia), overlap trimming (replaces minia_nooverlap),
                 read formatting/subsampling (replaces fastutils).

@@ -60,8 +60,8 @@ class MinimizerIndex:
         """For each query hash: (start, end) slice into the index arrays.
 
         The native bucketed equal-range (chain.cpp::hx_idx_lookup)
-        replaces two whole-array numpy searchsorted calls per read —
-        measured ~35% of the 50 Mb seed+chain phase."""
+        replaces two whole-array numpy searchsorted calls per read, a
+        large share of the seed+chain phase at scale."""
         if self.bucket_start is not None:
             from haslr_tpu import native
 

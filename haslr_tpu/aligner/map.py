@@ -348,7 +348,7 @@ def map_reads(
     Equivalent of ``minimap2 -t T --secondary=no -c {preset} contigs lr``.
     Three phases: (1) seed + chain, host-only, sharded across ``threads``
     worker processes (round-robin over reads, index replicated — the same
-    structure that shards reads across hosts on a pod slice, SURVEY.md
+    structure that shards reads across hosts, SURVEY.md
     §2.3); (2) ONE batched device alignment over every NW segment of every
     read, in this process, so the accelerator serves the whole read
     stream; (3) CIGAR assembly + PAF emission in read-file order.

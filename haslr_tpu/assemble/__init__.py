@@ -3,5 +3,5 @@ cleaning → edge coordinates → consensus → stitching.
 
 Python/numpy/JAX replacement for the reference's C++ ``haslr_assemble``
 (``src/haslr_assemble/src/main.cpp``), with the consensus hot loop running
-as batched Pallas kernels on TPU (see ``haslr_tpu.kernels``).
+as batched device kernels (see ``haslr_tpu.kernels``).
 """

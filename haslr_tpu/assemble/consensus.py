@@ -6,10 +6,10 @@ Replaces reference ``asm_calc_single_cns_seq`` + MT queue
 
 - ``"poa"``  — exact partial-order alignment per edge on host
   (:mod:`haslr_tpu.assemble.poa`), the SPOA-semantics reference engine.
-- ``"tpu"``  — batched consensus on device: windows are length-bucketed and
-  padded, all supporting reads of all windows aligned to their drafts by one
-  Pallas banded-NW kernel, consensus by weighted pileup vote
-  (:mod:`haslr_tpu.kernels.consensus`).
+- ``"device"`` — batched consensus on the accelerator: windows are
+  length-bucketed and padded, all supporting reads of all windows aligned
+  to their drafts by the batched banded-NW DP, consensus by weighted
+  pileup vote (:mod:`haslr_tpu.kernels.consensus`).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def calc_consensus(
     work queue.  Returns the number of edges processed.
 
     ``mesh``: optional ``jax.sharding.Mesh`` with a ``dp`` axis for the
-    ``"tpu"`` engine — supporting reads shard data-parallel across the
+    ``"device"`` engine — supporting reads shard data-parallel across the
     mesh and per-window vote tables psum-merge (the multi-chip
     replacement for the reference's pthread edge queue,
     Assemble.cpp:436-477,562-605); output is bit-identical to the
@@ -63,7 +63,7 @@ def calc_consensus(
         twin.flag = 12
         edges.append((edge, twin))
 
-    if cfg.consensus_engine == "tpu":
+    if cfg.consensus_engine == "device":
         from haslr_tpu.kernels.consensus import batched_consensus
 
         windows = [_edge_window_seqs(edge, lrs) for edge, _ in edges]

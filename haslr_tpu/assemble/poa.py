@@ -16,7 +16,7 @@ then ``generate_consensus``).  This is a from-scratch POA:
 - consensus by heaviest-bundle traversal (Lee 2003): the max-weight path
   through the DAG.
 
-The TPU batch engine (``haslr_tpu.kernels``) produces consensus for many
+The device batch engine (``haslr_tpu.kernels``) produces consensus for many
 windows in parallel; this engine is the reference implementation and the
 default for tiny inputs.
 """

@@ -69,7 +69,7 @@ def prepare_lrs(cfg: PipelineConfig) -> str:
 
 
 def _get_mesh(cfg: PipelineConfig):
-    """The dp mesh the TPU stages shard over (None = single device)."""
+    """The dp mesh the device stages shard over (None = single device)."""
     if cfg.devices == 1:
         return None
     from haslr_tpu.dist.mesh import make_mesh
@@ -231,19 +231,20 @@ def parse_options(argv=None) -> PipelineConfig:
     p.add_argument("--short-fofn", action="store_true")
     p.add_argument("--long-fofn", action="store_true")
     p.add_argument(
-        "--platform", default="auto", choices=["auto", "cpu"],
-        help="force JAX onto local CPU (auto = default device, e.g. TPU)",
+        "--platform", default="gpu", choices=["gpu", "cpu"],
+        help="where the device stages run: gpu (CUDA; an error without a"
+             " card) or cpu",
     )
     p.add_argument(
         "--devices", type=int, default=1,
-        help="device-mesh width for the TPU stages (k-mer merge, aligner"
+        help="device-mesh width for the device stages (k-mer merge, aligner"
              " extension, consensus); 0 = all visible devices",
     )
     a = p.parse_args(argv)
-    if a.platform == "cpu":
-        import jax
+    from haslr_tpu import runtime
 
-        jax.config.update("jax_platforms", "cpu")
+    runtime.select_platform(a.platform)
+    runtime.init_compile_cache()
     if a.short is None and a.contig is None:
         p.error("either -s/--short or -c/--contig is required")
     longs = list(a.long)

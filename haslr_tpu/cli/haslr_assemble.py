@@ -37,15 +37,15 @@ def main(argv=None):
     p.add_argument("--mapping-fofn", action="store_true")
     p.add_argument("--resolve-repeats", action="store_true")
     p.add_argument("--bridge-sup", type=int, default=2)
-    p.add_argument("--consensus-engine", default="tpu",
-                   choices=["tpu", "poa"])
-    p.add_argument("--platform", default="auto", choices=["auto", "cpu"])
+    p.add_argument("--consensus-engine", default="device",
+                   choices=["device", "poa"])
+    p.add_argument("--platform", default="gpu", choices=["gpu", "cpu"])
     p.add_argument("--version", action="version", version=__version__)
     a = p.parse_args(argv)
-    if a.platform == "cpu":
-        import jax
+    from haslr_tpu import runtime
 
-        jax.config.update("jax_platforms", "cpu")
+    runtime.select_platform(a.platform)
+    runtime.init_compile_cache()
     # defaults-on-invalid, mirroring Commandline.cpp:148-175
     if a.aln_block < 0:
         a.aln_block = 500

@@ -1,7 +1,7 @@
 """Multi-chip scaling: device meshes, data-parallel long-read streaming,
 psum-merged edge support.
 
-The reference is single-node (SURVEY.md §2.3); the TPU-native mapping is:
+The reference is single-node (SURVEY.md §2.3); the multi-device mapping is:
 the SR-contig/minimizer index is replicated per host, long reads stream
 data-parallel across the mesh, per-edge support counts merge with
 ``jax.lax.psum``, and graph cleaning runs replicated on the reduced
@@ -25,7 +25,7 @@ def initialize(coordinator_address: str | None = None,
                timeout_s: int | None = None) -> None:
     """Bring up ``jax.distributed`` for multi-host runs.
 
-    All-``None`` arguments auto-detect the cluster environment (TPU pod
+    All-``None`` arguments auto-detect the cluster environment (cluster
     metadata / SLURM), matching ``jax.distributed.initialize`` semantics;
     detection failures then leave JAX in single-process mode.  With
     EXPLICIT arguments, errors propagate — a typo'd coordinator address

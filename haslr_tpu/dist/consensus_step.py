@@ -8,7 +8,7 @@ drafts replicated); this module is the same pattern reduced to one
 readable superstep, kept as documentation-by-example and exercised by
 ``tests/test_dist.py::test_sharded_consensus_step_matches_single_device``.
 
-One step of the distributed pipeline (SURVEY.md §2.3 TPU mapping):
+One step of the distributed pipeline (SURVEY.md §2.3 mapping):
 
 - a batch of (read-window, draft) pairs is sharded across the ``dp`` mesh
   axis (data-parallel long-read streaming; the contig/draft side is

@@ -6,7 +6,7 @@ The device-batched replacement for per-window SPOA (reference
 1. pick a draft = the median-length supporting subsequence;
 2. length-bucket all (read, draft) pairs across *all* windows and run the
    batched banded-NW kernel (:mod:`haslr_tpu.kernels.nw`) per bucket — the
-   TPU sees a few large ``(B, W)`` lockstep DPs instead of thousands of
+   device sees a few large ``(B, W)`` lockstep DPs instead of thousands of
    tiny irregular ones;
 3. lockstep traceback + insertion-aware pileup vote (numpy, vectorized over
    the batch) → polished consensus;
@@ -216,8 +216,8 @@ def _one_round(window_codes, drafts, match, mismatch, gap,
         max_b = max(1, (512 << 20) // ((2 * S + 1) * W))
         for lo in range(0, len(pairs), max_b):
             chunk = pairs[lo : lo + max_b]
-            # pad the batch to a power of two (>= 32: the Pallas DP kernel
-            # groups 32 reads per program) so jit shapes stay stable
+            # pad the batch to a power of two (>= 32) so jit shapes stay
+            # stable
             B = 32
             while B < len(chunk):
                 B *= 2
@@ -236,10 +236,10 @@ def _one_round(window_codes, drafts, match, mismatch, gap,
                 win_idx[k] = wi
             if device_pileup:
                 # fully device-resident, single dispatch: align + scatter
-                # fused so the mapping never leaves the chip
+                # fused so the mapping never leaves the device
                 pile.align_add_chunk(
                     reads, r_lens, dr, d_lens, win_idx, W, match, mismatch,
-                    gap, nw.use_pallas_for(B, S, S, W),
+                    gap,
                 )
             else:
                 mapping = nw.align_mapping_device(

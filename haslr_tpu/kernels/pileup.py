@@ -7,7 +7,7 @@ leaves the device — only the compact vote calls (a few bytes per draft
 position) transfer at the end of a polish round.
 
 Table totals are padded to power-of-two buckets so jit shapes stay stable
-across assemblies (remote TPU compiles are expensive); all scatters use
+across assemblies (each new shape is a compile); all scatters use
 ``mode="drop"`` with a far out-of-bounds dump index for masked lanes.
 """
 
@@ -87,20 +87,19 @@ _scatter_chunk = jax.jit(_scatter_chunk_inner)
 
 @functools.partial(
     jax.jit,
-    static_argnums=(12, 13, 14, 15, 16, 17),
+    static_argnums=(12, 13, 14, 15, 16),
     donate_argnums=(0, 1, 2, 3, 4),
 )
 def _align_scatter(counts, cov_diff, ins1, ins2, n_reads, reads, r_lens,
                    drafts, d_lens, woff, woff1, win_idx, W, match, mismatch,
-                   gap, use_pallas, engine):
+                   gap, engine):
     """Fused banded-NW align + pileup scatter: ONE device dispatch per
     chunk (the mapping tensor lives only inside this computation), with
     the vote tables donated so accumulation is in-place."""
     R = reads.shape[1]
     D = drafts.shape[1]
     mapping = _align_mapping_inner(reads, r_lens, drafts, d_lens, R, D, W,
-                                   match, mismatch, gap, use_pallas,
-                                   engine)
+                                   match, mismatch, gap, engine)
     return _scatter_chunk_inner(counts, cov_diff, ins1, ins2, n_reads,
                                 mapping, reads, r_lens, woff, woff1,
                                 win_idx)
@@ -197,7 +196,7 @@ class DevicePileup:
         )
 
     def align_add_chunk(self, reads, r_lens, drafts, d_lens, win_idx, W,
-                        match, mismatch, gap, use_pallas):
+                        match, mismatch, gap):
         """Fused path: banded-NW align + scatter in one device dispatch."""
         from haslr_tpu.kernels import nw as _nw
 
@@ -210,8 +209,7 @@ class DevicePileup:
             jnp.asarray(self.off[win_idx], jnp.int32),
             jnp.asarray(self.off1[win_idx], jnp.int32),
             jnp.asarray(win_idx, jnp.int32),
-            W, match, mismatch, gap, use_pallas,
-            _nw._resolve_engine(None),
+            W, match, mismatch, gap, _nw._resolve_engine(None),
         )
 
     def vote(self, drafts):

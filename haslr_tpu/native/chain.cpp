@@ -93,9 +93,9 @@ void chain_group(const int64_t* t_pos, const int64_t* q_pos, uint64_t n,
 
 extern "C" {
 
-// All of one read's (target, strand) groups chained in ONE call: the
-// per-group ctypes/numpy crossing measured ~44% of the whole
-// seed+chain phase (6.8M tiny calls at the 50 Mb tier).  ``group_off``
+// All of one read's (target, strand) groups chained in ONE call: a
+// per-group ctypes/numpy crossing dominated the seed+chain phase
+// (millions of tiny calls at the 50 Mb tier).  ``group_off``
 // holds n_groups + 1 offsets into the flat (t_pos, q_pos) arrays;
 // chain anchor indices are RELATIVE to their group's start.
 void* hx_chain_batch(const int64_t* t_pos, const int64_t* q_pos,

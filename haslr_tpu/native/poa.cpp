@@ -3,7 +3,7 @@
 // Plays the role of the vendored SPOA v1.1.3 library the reference links
 // against (Assemble.cpp:499-555: global alignment, match 5 / mismatch -4 /
 // gap -8, align+add each supporting subsequence, generate_consensus), and
-// doubles as the honest CPU baseline for the TPU consensus benchmark.
+// doubles as the honest CPU baseline for the device consensus benchmark.
 // Semantics match haslr_tpu/assemble/poa.py (the validated reference
 // implementation) move for move: same topological order, same traceback
 // preference (diagonal > deletion > insertion, predecessors in insertion

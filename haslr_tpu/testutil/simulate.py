@@ -259,15 +259,17 @@ def make_reads(
     mean_len: int = 8000,
     error_rate: float = 0.06,
     homopolymer_bias: float = 0.0,
+    traced: bool = True,
 ) -> list[SimRead]:
+    """Long reads at ``coverage``; ``traced=False`` (or a scale above
+    FAST_READS_THRESHOLD) takes the vectorized generator."""
     n = len(genome)
-    if (
-        coverage * n > FAST_READS_THRESHOLD
-        and homopolymer_bias == 0.0
+    if homopolymer_bias == 0.0 and (
+        not traced or coverage * n > FAST_READS_THRESHOLD
     ):
         # scale regime: vectorized path (no per-base error traces, so
-        # true_paf_records cannot be used on these reads — large-scale
-        # benches map with the real aligner anyway)
+        # true_paf_records cannot be used on these reads — benchmarks
+        # map with the real aligner anyway)
         return _make_reads_fast(rng, genome, coverage, mean_len,
                                 error_rate)
     total = 0

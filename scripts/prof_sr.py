@@ -19,16 +19,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache",
-    ),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
+from haslr_tpu import runtime  # noqa: E402
 from scripts.bench_e2e import build_dataset  # noqa: E402
+
+runtime.init_compile_cache()
 
 
 def main():

@@ -80,12 +80,12 @@ def test_assembler_reconstructs_genome(dataset):
         assert os.path.isfile(out + "/asm/" + f), f
 
 
-def test_assembler_tpu_engine(dataset):
+def test_assembler_device_engine(dataset):
     """The batched device consensus engine must reach at least POA quality."""
     genome, contigs, reads, (contig_path, lr_path, paf_path), out = dataset
-    cfg = AssembleConfig(consensus_engine="tpu")
+    cfg = AssembleConfig(consensus_engine="device")
     stats = run_assembler(
-        contig_path, lr_path, paf_path, out + "/asm_tpu", cfg=cfg, log=None
+        contig_path, lr_path, paf_path, out + "/asm_device", cfg=cfg, log=None
     )
     recs = list(cio.read_fastx(stats["assembly"]))
     total = sum(len(r.seq) for r in recs)

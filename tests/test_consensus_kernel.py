@@ -1,4 +1,4 @@
-"""Tests for the batched NW kernel and the TPU-path consensus engine
+"""Tests for the batched NW kernel and the device consensus engine
 (running on CPU via the pure-JAX path)."""
 
 import numpy as np
@@ -291,7 +291,7 @@ def test_sorted_vote_tables_match_scatter():
     mapping = nw._align_mapping_inner(
         jnp.asarray(reads), jnp.asarray(r_lens),
         jnp.asarray(drafts[win_idx]), jnp.asarray(d_lens[win_idx]),
-        S, S, W, 5, -4, -8, False,
+        S, S, W, 5, -4, -8, "wavefront",
     )
     a = cd._scatter_votes(
         mapping, jnp.asarray(reads), jnp.asarray(r_lens),
@@ -331,3 +331,27 @@ def test_sorted_vote_tables_match_scatter():
         cd.VOTE_IMPL = old
     assert all(np.array_equal(x, y) for x, y in zip(r1, r2))
     assert all(np.array_equal(x, y) for x, y in zip(r1, r3))
+
+
+def test_batch_padding_unit():
+    """Consensus batches pad to B_UNIT x n_dev times a power of two (the
+    row-scan DP takes any batch; every mesh device gets an equal shard),
+    and the per-dispatch cap follows the direction-tensor budget."""
+    from haslr_tpu.kernels import consensus_dense as cd
+
+    for n_dev in (1, 4, 8):
+        unit = cd.B_UNIT * n_dev
+        for n in (1, 7, 8, 9, 100, 4097):
+            B = cd._pad_batch(n, n_dev)
+            q = B // unit
+            assert B >= n and B % unit == 0 and q & (q - 1) == 0
+            assert B < 2 * max(n, unit)
+    assert cd.max_batch(512, 128) == (1 << 30) // (1025 * 128)
+    assert cd.max_batch(16384, 512) == 64
+    assert cd.max_batch(512, 128, 4) == 4 * cd.max_batch(512, 128)
+    old = cd.MAX_B_OVERRIDE
+    cd.MAX_B_OVERRIDE = 24
+    try:
+        assert cd.max_batch(512, 128, 4) == 24
+    finally:
+        cd.MAX_B_OVERRIDE = old

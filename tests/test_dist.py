@@ -148,7 +148,8 @@ def test_cli_devices_flag_byte_identical(tmp_path):
     for tag, extra in [("one", []), ("mesh", ["--devices", "8"])]:
         out = str(tmp_path / tag)
         rc = cli_main(
-            ["-o", out, "-g", "30k", "-l", lr, "-x", "pacbio", "-s", sr]
+            ["-o", out, "-g", "30k", "-l", lr, "-x", "pacbio", "-s", sr,
+             "--platform", "cpu"]
             + extra
         )
         assert rc == 0

@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.join(HERE, "golden"))
 
 from make_golden import (  # noqa: E402
     GOLDEN_ARTIFACTS,
-    GOLDEN_TPU_ARTIFACTS,
+    GOLDEN_DEVICE_ARTIFACTS,
 )
 
 
@@ -56,18 +56,18 @@ def test_stage_artifacts_match_golden(tmp_path):
     assert not mismatches, f"stage artifacts diverged: {mismatches}"
 
     # the device (dense) engine's final sequences, pinned separately
-    out_tpu = str(tmp_path / "asm_tpu")
-    cfg_tpu = AssembleConfig(consensus_engine="tpu")
+    out_dev = str(tmp_path / "asm_device")
+    cfg_dev = AssembleConfig(consensus_engine="device")
     run_assembler(
-        contig_path, lr_path, paf_path, out_tpu, cfg=cfg_tpu, log=None
+        contig_path, lr_path, paf_path, out_dev, cfg=cfg_dev, log=None
     )
-    for name in GOLDEN_TPU_ARTIFACTS:
-        with open(f"{exp_dir}/tpu.{name}", "rb") as f:
+    for name in GOLDEN_DEVICE_ARTIFACTS:
+        with open(f"{exp_dir}/device.{name}", "rb") as f:
             want = f.read()
-        with open(f"{out_tpu}/{name}", "rb") as f:
+        with open(f"{out_dev}/{name}", "rb") as f:
             got = f.read()
         if want != got:
-            mismatches.append(f"tpu.{name}")
+            mismatches.append(f"device.{name}")
     assert not mismatches, f"final outputs diverged: {mismatches}"
 
 

@@ -93,7 +93,7 @@ def test_graph_stages_byte_identical_to_reference(ref_binary, tmp_path):
 
     out = str(tmp_path / "ours")
     rc = cli_main(["-o", out, "-g", "80k", "-l", lr, "-x", "pacbio",
-                   "-s", sr])
+                   "-s", sr, "--platform", "cpu"])
     assert rc == 0
     ours_dir = glob.glob(f"{out}/asm_*")[0]
     noov = glob.glob(f"{out}/sr_*.contigs.nooverlap.fa")[0]

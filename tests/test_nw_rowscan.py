@@ -1,6 +1,6 @@
-"""Row-scan NW engine: XLA fallback vs Pallas (interpret) bit-equality,
-cross-check against the wavefront oracle, and engine-flip consistency of
-the consensus pipeline."""
+"""Row-scan NW engine: the XLA scan against the wavefront oracle (at
+every band width), the kernel-or-XLA shape rule, the CIGAR-run contract,
+and engine-flip consistency of the consensus pipeline."""
 
 import numpy as np
 import pytest
@@ -66,10 +66,10 @@ def test_rowscan_xla_matches_wavefront_oracle():
         jnp.asarray(drafts), jnp.asarray(d_lens),
     )
     wf = np.asarray(
-        nw._align_mapping(*args, S, S, W, 5, -4, -8, False, "wavefront")
+        nw._align_mapping(*args, S, S, W, 5, -4, -8, "wavefront")
     )
     rsm = np.asarray(
-        nw._align_mapping(*args, S, S, W, 5, -4, -8, False, "rowscan")
+        nw._align_mapping(*args, S, S, W, 5, -4, -8, "rowscan")
     )
     np.testing.assert_array_equal(wf, rsm)
 
@@ -87,7 +87,7 @@ def test_rowscan_alignment_semantics():
             nw._align_mapping(
                 jnp.asarray(reads), jnp.asarray([len(read)], np.int32),
                 jnp.asarray(drafts), jnp.asarray([len(draft)], np.int32),
-                S, S, W, 5, -4, -8, False, "rowscan",
+                S, S, W, 5, -4, -8, "rowscan",
             )
         )
         return m[0, : len(read)]
@@ -115,86 +115,6 @@ def test_rowscan_alignment_semantics():
     assert 4 <= anchor <= 8  # any anchor in the homopolymer context
 
 
-def test_rowscan_pallas_mapping_matches_xla_interpret():
-    """The fused Pallas row-scan kernel reproduces the XLA row-scan
-    mapping bit-exactly — including out-of-gate reads (garbage rows are
-    deterministic in both implementations) and pure padding rows."""
-    B, S, W = 64, 256, 128
-    rng = np.random.default_rng(7)
-    reads, r_lens, drafts, d_lens = _mutated_batch(rng, B, S)
-    # force a few out-of-gate rows (band-incompatible lengths)
-    r_lens[0] = min(int(r_lens[0]), 60)
-    d_lens[0] = 200
-    r_lens[1] = 200
-    d_lens[1] = 60
-    args = (
-        jnp.asarray(reads), jnp.asarray(r_lens),
-        jnp.asarray(drafts), jnp.asarray(d_lens),
-    )
-    ref = np.asarray(
-        nw._align_mapping(*args, S, S, W, 5, -4, -8, False, "rowscan")
-    )
-    got = np.asarray(
-        rs.rowscan_mapping_pallas(*args, S, S, W, 5, -4, -8, True)
-    ).astype(ref.dtype)
-    np.testing.assert_array_equal(ref, got)
-
-
-def test_rowscan_votes_kernel_tables_match_scatter_interpret():
-    """Row-scan vote-plane kernel + MXU reduction == row-scan mapping +
-    XLA scatter vote tables (base counts, both insertion ranks, coverage
-    spans, read counts)."""
-    from haslr_tpu.kernels import consensus_dense as cd
-
-    B, S, W = 64, 256, 128
-    N = 8
-    rng = np.random.default_rng(11)
-    reads = np.full((B, S), 4, np.uint8)
-    drafts_n = np.full((N, S), 4, np.uint8)
-    d_lens_n = np.zeros(N, np.int32)
-    for n in range(N):
-        dl = int(rng.integers(60, S - 10))
-        drafts_n[n, :dl] = rng.integers(0, 4, dl)
-        d_lens_n[n] = dl
-    win_idx = rng.integers(0, N, B).astype(np.int32)
-    r_lens = np.zeros(B, np.int32)
-    for b in range(B - 4):
-        d = drafts_n[win_idx[b]][: d_lens_n[win_idx[b]]]
-        r = []
-        for ch in d:
-            x = rng.random()
-            if x < 0.04:
-                continue
-            if x < 0.10:
-                r.append(int(rng.integers(0, 4)))
-            if x < 0.14:
-                r.append(int(rng.integers(0, 4)))
-                continue
-            r.append(int(ch))
-        r = np.array(r[:S], np.uint8)
-        reads[b, : len(r)] = r
-        r_lens[b] = len(r)
-    dl_r = d_lens_n[win_idx]
-    ok = (r_lens > 0) & (dl_r > 0) & (np.abs(r_lens - dl_r) < W // 2 - 4)
-    dr_r = drafts_n[win_idx]
-    args = (
-        jnp.asarray(reads), jnp.asarray(r_lens),
-        jnp.asarray(dr_r), jnp.asarray(dl_r),
-    )
-    mapping = nw._align_mapping(*args, S, S, W, 5, -4, -8, False, "rowscan")
-    ref = cd._scatter_votes(
-        mapping, jnp.asarray(reads), jnp.asarray(r_lens),
-        jnp.asarray(win_idx), jnp.asarray(ok), N, S,
-    )
-    planes, stats = rs.rowscan_votes_pallas(*args, S, S, W, 5, -4, -8, True)
-    got = cd._kernel_vote_tables(
-        planes, stats, jnp.asarray(win_idx), jnp.asarray(ok), N, S
-    )
-    names = ("counts", "cov_diff", "ins1", "ins2", "n_reads")
-    for name, a, b in zip(names, ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), name)
-
-
 def test_cigar_runs_match_mapping_conversion():
     """The device CIGAR-run traceback, decoded, equals the mapping ->
     CIGAR conversion (ops, lens, n_eq) for every read — the contract the
@@ -213,7 +133,7 @@ def test_cigar_runs_match_mapping_conversion():
     )
     MAXR = 128
     mapping = np.asarray(
-        nw._align_mapping(*args, S, S, W, 2, -4, -2, False, "rowscan")
+        nw._align_mapping(*args, S, S, W, 2, -4, -2, "rowscan")
     )
     runs, n_runs = rs._rowscan_cigar_inner(*args, S, S, W, 2, -4, -2, MAXR)
     runs = np.asarray(runs).astype(np.uint16)
@@ -237,29 +157,6 @@ def test_cigar_runs_match_mapping_conversion():
             np.testing.assert_array_equal(exp_o, no)
             np.testing.assert_array_equal(exp_l, nl.astype(exp_l.dtype))
             assert exp_ne == nne
-
-
-def test_cigar_runs_pallas_matches_xla_interpret():
-    B, S, W = 64, 256, 128
-    rng = np.random.default_rng(19)
-    reads, r_lens, drafts, d_lens = _mutated_batch(rng, B, S)
-    args = (
-        jnp.asarray(reads), jnp.asarray(r_lens),
-        jnp.asarray(drafts), jnp.asarray(d_lens),
-    )
-    MAXR = 128
-    runs_x, n_x = rs._rowscan_cigar_inner(*args, S, S, W, 2, -4, -2, MAXR)
-    runs_p, cnt_p = rs.rowscan_cigar_pallas(
-        *args, S, S, W, 2, -4, -2, MAXR, True
-    )
-    n_x = np.asarray(n_x)
-    np.testing.assert_array_equal(n_x, np.asarray(cnt_p)[:, 0])
-    # compare only the emitted slots (the rest is scratch garbage)
-    runs_x = np.asarray(runs_x)
-    runs_p = np.asarray(runs_p)
-    lane = np.arange(MAXR)[None, :]
-    m = lane < np.minimum(n_x, MAXR)[:, None]
-    np.testing.assert_array_equal(runs_x[m], runs_p[m])
 
 
 def test_cigar_runs_overflow_flagged():
@@ -333,6 +230,106 @@ def test_batch_align_segments_runs_path():
         tc = int(np.sum(np.where(o != ccigar.I, l, 0)))
         assert qc == len(q) and tc == len(t)
         assert 0 <= ne <= min(len(q), len(t))
+
+
+@pytest.mark.parametrize("S,W", [(512, 256), (1024, 512)])
+def test_rowscan_wide_band_matches_wavefront_oracle(S, W):
+    """The W = 256/512 buckets (consensus S >= 2048, extension) run the
+    XLA row scan on every platform: its mapping equals the wavefront
+    oracle's on admitted reads, and its CIGAR runs equal the oracle
+    mapping's CIGAR."""
+    from haslr_tpu.aligner.extend import _decode_runs_py, mapping_to_cigar
+
+    B = 12
+    rng = np.random.default_rng(W)
+    reads, r_lens, drafts, d_lens = _mutated_batch(rng, B, S, pad_rows=2)
+    for b in range(B):
+        if abs(int(r_lens[b]) - int(d_lens[b])) >= W // 2 - 4:
+            r_lens[b] = d_lens[b]
+    args = (
+        jnp.asarray(reads), jnp.asarray(r_lens),
+        jnp.asarray(drafts), jnp.asarray(d_lens),
+    )
+    wf = np.asarray(
+        nw._align_mapping(*args, S, S, W, 5, -4, -8, "wavefront")
+    )
+    got = np.asarray(rs.rowscan_mapping(*args, S, S, W, 5, -4, -8))
+    np.testing.assert_array_equal(wf, got)
+
+    wf2 = np.asarray(
+        nw._align_mapping(*args, S, S, W, 2, -4, -2, "wavefront")
+    )
+    MAXR = rs.default_maxr(S)
+    runs, n_runs = rs.rowscan_cigar(*args, S, S, W, 2, -4, -2, MAXR)
+    runs = np.asarray(runs).astype(np.uint16)
+    n_runs = np.asarray(n_runs)
+    for b in range(B):
+        q = reads[b, : r_lens[b]]
+        t = drafts[b, : d_lens[b]]
+        exp = mapping_to_cigar(wf2[b], q, t)
+        got_b = _decode_runs_py(runs[b], int(n_runs[b]), q, t)
+        np.testing.assert_array_equal(exp[0], got_b[0])
+        np.testing.assert_array_equal(exp[1], got_b[1])
+        assert exp[2] == got_b[2]
+
+
+def test_kernel_shape_rule():
+    """The CUDA kernel takes exactly the W = 128 buckets up to S = 1024
+    with D <= R; everything wider stays on the XLA scan."""
+    from haslr_tpu.kernels import consensus_dense as cd
+
+    for S in (128, 256, 512, 1024):
+        assert rs.kernel_applies(S, S, cd._band_width(S))
+    for S in (2048, 4096, 16384):
+        assert not rs.kernel_applies(S, S, cd._band_width(S))
+    assert not rs.kernel_applies(256, 512, 128)  # D > R
+    assert not rs.kernel_applies(2048, 2048, 128)  # beyond shared memory
+    assert rs.kernel_applies(300, 200, 128)
+
+
+def test_kernel_not_chosen_on_cpu():
+    """On the CPU backend every shape runs the XLA scan (the kernel is
+    built for the GPU only) — the production entry equals the XLA
+    reference bit for bit."""
+    assert not rs.use_kernel(512, 512, 128)
+    B, S, W = 8, 256, 128
+    rng = np.random.default_rng(5)
+    reads, r_lens, drafts, d_lens = _mutated_batch(rng, B, S, pad_rows=1)
+    args = (
+        jnp.asarray(reads), jnp.asarray(r_lens),
+        jnp.asarray(drafts), jnp.asarray(d_lens),
+    )
+    np.testing.assert_array_equal(
+        np.asarray(rs.rowscan_mapping(*args, S, S, W, 5, -4, -8)),
+        np.asarray(rs._rowscan_mapping_inner(*args, S, S, W, 5, -4, -8)),
+    )
+
+
+def test_align_mapping_unsupported_rowscan_shape_uses_wavefront():
+    """D > R with a band that would jump > 1 column per row is outside
+    the row scan's contract: the mapping entry falls to the wavefront."""
+    R, D, W = 128, 384, 128
+    assert not rs.rowscan_supported(R, D, W)
+    rng = np.random.default_rng(9)
+    reads = np.full((4, R), 4, np.uint8)
+    drafts = np.full((4, D), 4, np.uint8)
+    r_lens = np.array([100, 80, 0, 120], np.int32)
+    d_lens = np.array([110, 90, 30, 125], np.int32)
+    for b in range(4):
+        d = rng.integers(0, 4, d_lens[b]).astype(np.uint8)
+        drafts[b, : d_lens[b]] = d
+        reads[b, : r_lens[b]] = d[: r_lens[b]]
+    args = (
+        jnp.asarray(reads), jnp.asarray(r_lens),
+        jnp.asarray(drafts), jnp.asarray(d_lens),
+    )
+    got = np.asarray(
+        nw._align_mapping(*args, R, D, W, 5, -4, -8, "rowscan")
+    )
+    want = np.asarray(
+        nw._align_mapping(*args, R, D, W, 5, -4, -8, "wavefront")
+    )
+    np.testing.assert_array_equal(got, want)
 
 
 def test_consensus_engines_agree():

@@ -43,6 +43,7 @@ def test_pipeline_from_raw_reads(tmp_path):
     rc = main([
         "-o", out, "-g", "30k", "-l", lr_path, "-x", "pacbio",
         "-s", sr_path, "--minia-kmer", "49", "--cov-lr", "25",
+        "--platform", "cpu",
     ])
     assert rc == 0
     # artifacts with reference-compatible names
@@ -70,6 +71,7 @@ def test_pipeline_from_raw_reads(tmp_path):
     rc = main([
         "-o", out, "-g", "30k", "-l", lr_path, "-x", "pacbio",
         "-s", sr_path, "--minia-kmer", "49", "--cov-lr", "25",
+        "--platform", "cpu",
     ])
     assert rc == 0
 
@@ -108,7 +110,7 @@ def test_pipeline_nanopore_grade_errors(tmp_path):
     out = str(tmp_path / "out")
     rc = main([
         "-o", out, "-g", "80k", "-l", lr_path, "-x", "nanopore",
-        "-s", sr_path,
+        "-s", sr_path, "--platform", "cpu",
     ])
     assert rc == 0
     import glob

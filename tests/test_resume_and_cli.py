@@ -66,7 +66,7 @@ def test_haslr_assemble_cli_and_resume(sim, tmp_path):
     out = str(tmp_path / "asmcli")
     rc = main([
         "-c", contig_path, "-l", lr_path, "-m", paf_path, "-d", out,
-        "--consensus-engine", "poa",
+        "--consensus-engine", "poa", "--platform", "cpu",
     ])
     assert rc == 0
     assert os.path.isfile(f"{out}/asm.final.fa")
@@ -77,6 +77,7 @@ def test_haslr_assemble_cli_and_resume(sim, tmp_path):
     rc = main([
         "-c", "/nonexistent.fa", "-l", "/nonexistent2.fa",
         "-m", "/nonexistent3.paf", "-d", out, "--consensus-engine", "poa",
+        "--platform", "cpu",
     ])
     assert rc == 0
     assert open(f"{out}/asm.final.fa").read() == first
